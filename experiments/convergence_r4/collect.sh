@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
 # Copy the convergence run's artifacts back into the repo next to the
-# config that produced them (run.sh), and render the learning-curve plot.
+# config that produced them (run.sh).
 # LR boundaries: epochs 48/56 of 60 at 11 optimizer steps per epoch
 # (60/20/20 split -> 360 train images / microbatch 8 = 45 microbatches,
 # // accumulation 4 -> 11 optimizer steps) -> steps 528, 616; the run
@@ -11,7 +11,3 @@ DEST="$(dirname "$0")"
 cp "$WORK/ckpt/tensorboard-train/events.csv" "$DEST/events-train.csv"
 cp "$WORK/ckpt/tensorboard-val/events.csv" "$DEST/events-val.csv"
 cp "$WORK/ckpt/results.txt" "$DEST/results.txt"
-python "$DEST/../convergence_plot.py" "$WORK/ckpt" \
-  "$DEST/convergence_r4.png" \
-  --lr_boundaries 528 616 \
-  --title "rangeclip_tpu canonical convergence (224^2, C=256, bf16, tower on)"

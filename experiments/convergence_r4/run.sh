@@ -18,7 +18,7 @@
 # pct_medium 1->0 by epoch 15 and pct_hard 0->0.8 by epoch 40
 # (train_util.py:52-62 law).  max_steps 900 is a safety cap, not reached.
 #
-# Usage (TPU machine):   bash experiments/convergence_r4/run.sh [workdir]
+# Usage (GPU machine):   bash experiments/convergence_r4/run.sh [workdir]
 # Artifacts are copied back into experiments/convergence_r4/ afterwards
 # by collect.sh.
 set -euo pipefail
@@ -28,7 +28,7 @@ mkdir -p "$WORK"
 # --- on-disk dataset (recorded provenance) -----------------------------
 python - "$WORK" <<'EOF'
 import sys
-from rangeclip_tpu.data.synthetic import write_synthetic_dataset
+from rangeclip.data.synthetic import write_synthetic_dataset
 
 paths = write_synthetic_dataset(
     sys.argv[1] + "/data",
@@ -42,7 +42,7 @@ print(paths)
 EOF
 
 # --- training through the real CLI -------------------------------------
-python -m rangeclip_tpu.cli.train \
+python -m rangeclip.cli.train \
   --labeled_metadata_path "$WORK/data/metadata.csv" \
   --labels_path "$WORK/data/candidate_labels.csv" \
   --equivalence_dict_path "$WORK/data/label_similarity_sets.csv" \
@@ -54,7 +54,6 @@ python -m rangeclip_tpu.cli.train \
   --scheduler_type multi_step \
   --w_weight_decay 0.0 \
   --w_text 1.0 --w_image 0.5 --w_smooth 2e2 \
-  --contrast_capacity 128 \
   --clip_checkpoint_path random \
   --embedding_dim 512 \
   --checkpoint_path "$WORK/ckpt" \

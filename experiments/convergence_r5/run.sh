@@ -2,7 +2,7 @@
 # Round-5 canonical convergence run: TOP-1-decisive (VERDICT r4 #2).
 #
 # Differences from ../convergence_r4 (each backed by the round-5
-# diagnosis chain in experiments/top1_dtype_ab.py + the balanced-arm
+# diagnosis chain (diagnosis_ab_results.txt) + the balanced-arm
 # A/B, see ../convergence_r5/README.md):
 #   * --class_balanced: equal per-present-class CE weight per window.
 #     The r4 run's top-1 ceiling was NOT precision (a controlled
@@ -21,7 +21,7 @@
 # 22 opt steps/epoch (720 train / microbatch 8 // accum 4), 100 epochs
 # -> 2200 steps; boundaries at epochs 84/94 = steps 1848/2068.
 #
-# Usage (TPU machine):   bash experiments/convergence_r5/run.sh [workdir]
+# Usage (GPU machine):   bash experiments/convergence_r5/run.sh [workdir]
 # Artifacts are copied back by collect.sh.
 set -euo pipefail
 WORK=${1:-/tmp/convergence_r5}
@@ -30,7 +30,7 @@ mkdir -p "$WORK"
 # --- on-disk dataset (recorded provenance) -----------------------------
 python - "$WORK" <<'PYEOF'
 import sys
-from rangeclip_tpu.data.synthetic import write_synthetic_dataset
+from rangeclip.data.synthetic import write_synthetic_dataset
 
 paths = write_synthetic_dataset(
     sys.argv[1] + "/data",
@@ -44,7 +44,7 @@ print(paths)
 PYEOF
 
 # --- training through the real CLI -------------------------------------
-python -m rangeclip_tpu.cli.train \
+python -m rangeclip.cli.train \
   --labeled_metadata_path "$WORK/data/metadata.csv" \
   --labels_path "$WORK/data/candidate_labels.csv" \
   --equivalence_dict_path "$WORK/data/label_similarity_sets.csv" \
@@ -56,7 +56,6 @@ python -m rangeclip_tpu.cli.train \
   --scheduler_type multi_step \
   --w_weight_decay 0.0 \
   --w_text 1.0 --w_image 0.5 --w_smooth 2e2 \
-  --contrast_capacity 128 \
   --class_balanced \
   --clip_checkpoint_path random \
   --embedding_dim 512 \
@@ -71,7 +70,7 @@ python -m rangeclip_tpu.cli.train \
   2>&1 | tee "$WORK/train.log"
 
 # --- held-out TEST split + trivial baselines ---------------------------
-python -m rangeclip_tpu.cli.validate \
+python -m rangeclip.cli.validate \
   --labeled_metadata_path "$WORK/data/metadata.csv" \
   --labels_path "$WORK/data/candidate_labels.csv" \
   --equivalence_dict_path "$WORK/data/label_similarity_sets.csv" \

@@ -1,39 +1,36 @@
-"""rangeclip_tpu — a TPU-native open-vocabulary depth segmentation framework.
+"""The package's former import name, kept so that code written against it
+still imports.  It is an alias: ``<this name>.X`` resolves to the very
+module ``rangeclip.X``, so classes and module state are shared.  New code
+imports ``rangeclip``."""
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the DepthCLIP
-("RangeCLIP") research framework: a ResNet-UNet+ASPP maps single-channel depth
-maps to per-pixel embeddings in CLIP's joint text/image embedding space,
-trained with a hybrid InfoNCE (pixel-text + area-image) + total-variation loss
-with curriculum-scheduled hard-negative distractors, and evaluated with
-equivalence-aware top-k pixel accuracy and mIoU.
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-Design stance (TPU-first, not a port):
-  * NHWC layout everywhere (XLA/TPU native), bfloat16 compute policy optional,
-    fp32 parameters.
-  * All randomness goes through explicit ``jax.random`` keys.
-  * Every data-dependent shape in the reference (variable foreground pixels,
-    variable contrast sets, variable candidate sets) is reformulated as a
-    fixed-capacity masked computation so each step compiles exactly once.
-  * Data parallelism via ``jax.sharding.Mesh`` + ``shard_map`` with ``psum``
-    gradient reduction (replacing torch DDP/NCCL); the class axis of the
-    contrastive head can additionally be sharded ("model" axis) for large
-    open-vocabulary label tables.
-  * Hot inference path (L2-normalize -> pixel x text matmul -> top-k) is
-    available as a fused Pallas TPU kernel.
+import rangeclip
 
-Reference behavior is documented per-module with ``file:line`` citations into
-the upstream repo snapshot (see SURVEY.md).
-"""
-
-__version__ = "0.1.0"
-
-__all__ = ["DepthUNet", "DepthUNetConfig", "__version__"]
+_OLD = __name__
 
 
-def __getattr__(name):
-    # Lazy re-exports so importing subpackages stays cheap.
-    if name in ("DepthUNet", "DepthUNetConfig"):
-        from rangeclip_tpu.models import depth_unet
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<old>.X`` to the already-importable ``rangeclip.X``."""
 
-        return getattr(depth_unet, name)
-    raise AttributeError(f"module 'rangeclip_tpu' has no attribute {name!r}")
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith(_OLD + "."):
+            return importlib.util.spec_from_loader(name, self)
+        return None
+
+    def create_module(self, spec):
+        return importlib.import_module("rangeclip" + spec.name[len(_OLD):])
+
+    def exec_module(self, module):
+        pass
+
+
+if not any(isinstance(f, _Alias) for f in sys.meta_path):
+    sys.meta_path.insert(0, _Alias())
+warnings.warn(f"{_OLD} is renamed rangeclip; import rangeclip instead",
+              DeprecationWarning, stacklevel=2)
+sys.modules[_OLD] = rangeclip

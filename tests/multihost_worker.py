@@ -3,7 +3,7 @@
 Launched by tests/test_multihost.py as ``python multihost_worker.py
 <process_id> <num_processes> <port> <data_dir> <out_dir>`` with
 JAX_PLATFORMS=cpu and 4 virtual CPU devices per process.  Runs the ACTUAL
-trainer (rangeclip_tpu.training.trainer) under ``jax.distributed`` — the
+trainer (rangeclip.training.trainer) under ``jax.distributed`` — the
 reference's torchrun/DDP launch shape (train.py:15-19), one loader shard
 per process — and prints the final best-results dict as JSON for the
 parent to compare against a single-process simulation of the same global
@@ -36,7 +36,7 @@ def main() -> None:
     # comparable
     jax.config.update("jax_default_matmul_precision", "highest")
 
-    from rangeclip_tpu.training.trainer import (
+    from rangeclip.training.trainer import (
         TrainerConfig,
         train_depth_clip_model,
     )

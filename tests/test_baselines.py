@@ -4,7 +4,7 @@ probe harness."""
 import numpy as np
 import jax.numpy as jnp
 
-from rangeclip_tpu.evals.baselines import (
+from rangeclip.evals.baselines import (
     evaluate_majority_model,
     evaluate_random_model,
     evaluate_seg_former,
@@ -127,7 +127,7 @@ def test_clipseg_adapter_reconstructs_segmentation():
     segmentation exactly through the prompt->global index mapping."""
     import jax
 
-    from rangeclip_tpu.benchmark.clipseg import (
+    from rangeclip.benchmark.clipseg import (
         clipseg_topk_from_logits,
         make_clipseg_predict_fn,
     )

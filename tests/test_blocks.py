@@ -1,7 +1,7 @@
 """Block-level parity vs torch oracles built from torch primitives.
 
 Strategy: construct the torch layer as documented in SURVEY.md section 2.1,
-copy its weights into our flax module, and require fp32 agreement.
+copy its weights into our module, and require fp32 agreement.
 """
 
 import numpy as np
@@ -10,7 +10,7 @@ import torch.nn as tnn
 import jax
 import jax.numpy as jnp
 
-from rangeclip_tpu.ops.blocks import (
+from rangeclip.ops.blocks import (
     Conv2d,
     TransposeConv2d,
     DecoderBlock,
@@ -22,7 +22,7 @@ def nhwc(x):
     return np.transpose(x, (0, 2, 3, 1))
 
 
-def t2f_conv(w):  # torch [out,in,kh,kw] -> flax HWIO
+def t2f_conv(w):  # torch [out,in,kh,kw] -> HWIO
     return np.transpose(w.detach().numpy(), (2, 3, 1, 0))
 
 

@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 
-from rangeclip_tpu.data.synthetic import write_synthetic_dataset
+from rangeclip.data.synthetic import write_synthetic_dataset
 
 RES = 32
 EDIM = 32
@@ -32,15 +32,15 @@ def _data_flags(ws):
 
 @pytest.mark.slow
 def test_cli_train_then_validate_then_infer(workspace):
-    from rangeclip_tpu.cli import benchmark as bench_cli
-    from rangeclip_tpu.cli import infer as infer_cli
-    from rangeclip_tpu.cli import train as train_cli
-    from rangeclip_tpu.cli import validate as validate_cli
+    from rangeclip.cli import benchmark as bench_cli
+    from rangeclip.cli import infer as infer_cli
+    from rangeclip.cli import train as train_cli
+    from rangeclip.cli import validate as validate_cli
 
     ws = workspace
     ckpt = str(ws["root"] / "ckpt")
-    import rangeclip_tpu.training.trainer as trainer_mod
-    from rangeclip_tpu.models.depth_unet import DepthUNetConfig
+    import rangeclip.training.trainer as trainer_mod
+    from rangeclip.models.depth_unet import DepthUNetConfig
 
     orig = DepthUNetConfig
 
@@ -67,7 +67,7 @@ def test_cli_train_then_validate_then_infer(workspace):
 
     # validate CLI restores the checkpoint and reruns metrics; the small
     # encoder patch must match what training used
-    from rangeclip_tpu.models import depth_unet as du_mod
+    from rangeclip.models import depth_unet as du_mod
 
     du_orig = du_mod.DepthUNetConfig
     du_mod.DepthUNetConfig = small_cfg
@@ -132,7 +132,7 @@ def test_cli_train_then_validate_then_infer(workspace):
 
 
 def test_cli_train_rejects_mismatched_schedule(workspace):
-    from rangeclip_tpu.cli import train as train_cli
+    from rangeclip.cli import train as train_cli
 
     with pytest.raises(AssertionError, match="learning rates and schedule"):
         train_cli.main(_data_flags(workspace) + [
@@ -143,17 +143,17 @@ def test_cli_train_rejects_mismatched_schedule(workspace):
 
 
 def test_cli_convert_roundtrip(tmp_path):
-    """convert: orbax -> reference .pth -> orbax preserves every weight,
+    """convert: checkpoint -> reference .pth -> checkpoint preserves every weight,
     BN statistic, and the train step."""
     pytest.importorskip("torch")
     import jax
     import jax.numpy as jnp
 
-    from rangeclip_tpu.cli import convert as convert_cli
-    from rangeclip_tpu.models.depth_unet import DepthUNetConfig
-    from rangeclip_tpu.training.checkpoint import CheckpointManager
-    from rangeclip_tpu.training.optim import make_optimizer
-    from rangeclip_tpu.training.state import create_train_state
+    from rangeclip.cli import convert as convert_cli
+    from rangeclip.models.depth_unet import DepthUNetConfig
+    from rangeclip.training.checkpoint import CheckpointManager
+    from rangeclip.training.optim import make_optimizer
+    from rangeclip.training.state import create_train_state
 
     cfg = DepthUNetConfig(encoder_filters=(8, 16, 16, 16, 32),
                           embedding_dim=EDIM, use_batch_norm=True)
@@ -198,11 +198,11 @@ def test_cli_convert_exports_any_optimizer_config(tmp_path):
     import jax.numpy as jnp
     import torch
 
-    from rangeclip_tpu.cli import convert as convert_cli
-    from rangeclip_tpu.models.depth_unet import DepthUNetConfig
-    from rangeclip_tpu.training.checkpoint import CheckpointManager
-    from rangeclip_tpu.training.optim import make_optimizer
-    from rangeclip_tpu.training.state import create_train_state
+    from rangeclip.cli import convert as convert_cli
+    from rangeclip.models.depth_unet import DepthUNetConfig
+    from rangeclip.training.checkpoint import CheckpointManager
+    from rangeclip.training.optim import make_optimizer
+    from rangeclip.training.state import create_train_state
 
     cfg = DepthUNetConfig(encoder_filters=(8, 16, 16, 16, 32),
                           embedding_dim=EDIM, use_batch_norm=True)
@@ -229,24 +229,22 @@ def test_cli_export_stablehlo_roundtrip(workspace, tmp_path):
     text table as runtime input, and baked in from a labels CSV."""
     import json
 
-    from rangeclip_tpu.cli import export as export_cli
+    from rangeclip.cli import export as export_cli
 
     small = ["--encoder_filters", "8", "16", "16", "16", "32",
              "--embedding_dim", str(EDIM), "--batch_size", "2",
              "--height", str(RES), "--width", str(RES), "--top_k", "3"]
 
     out = str(tmp_path / "open_vocab.stablehlo")
-    try:
-        export_cli.main([
-            "--init_random", "--num_classes", "12", "--text_as_input",
-            "--output", out, "--portable", "--verify",
-        ] + small)
-    finally:
-        os.environ.pop("RANGECLIP_PLATFORM", None)  # set by --portable
+    export_cli.main([
+        "--init_random", "--num_classes", "12", "--text_as_input",
+        "--output", out, "--portable", "--verify",
+    ] + small)
     assert os.path.getsize(out) > 0
     with open(out + ".json") as f:
         sidecar = json.load(f)
     assert sidecar["num_classes"] == 12 and sidecar["text_as_input"]
+    assert sorted(p.lower() for p in sidecar["platforms"]) == ["cpu", "cuda"]
     assert sidecar["inputs"][1]["shape"] == [12, EDIM]
 
     baked = str(tmp_path / "baked.stablehlo")
@@ -263,9 +261,9 @@ def test_cli_export_stablehlo_roundtrip(workspace, tmp_path):
 def test_cli_convert_rejects_mismatched_model(tmp_path):
     pytest.importorskip("torch")
     import jax
-    from rangeclip_tpu.cli import convert as convert_cli
-    from rangeclip_tpu.models.torch_interop import save_reference_checkpoint
-    from rangeclip_tpu.models.depth_unet import DepthUNet, DepthUNetConfig
+    from rangeclip.cli import convert as convert_cli
+    from rangeclip.models.torch_interop import save_reference_checkpoint
+    from rangeclip.models.depth_unet import DepthUNet, DepthUNetConfig
 
     cfg = DepthUNetConfig(encoder_filters=(8, 16, 16, 16, 32),
                           embedding_dim=EDIM, use_batch_norm=True)

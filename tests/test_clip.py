@@ -9,8 +9,8 @@ import jax.numpy as jnp
 torch = pytest.importorskip("torch")
 transformers = pytest.importorskip("transformers")
 
-from rangeclip_tpu.models.clip.convert import convert_text_tower, convert_vision_tower
-from rangeclip_tpu.models.clip.model import CLIPConfig, CLIPTextTower, CLIPVisionTower
+from rangeclip.models.clip.convert import convert_text_tower, convert_vision_tower
+from rangeclip.models.clip.model import CLIPConfig, CLIPTextTower, CLIPVisionTower
 
 TINY_KW = dict(
     vocab_size=99,
@@ -109,7 +109,7 @@ def test_tokenizer_matches_hf_on_unicode(tmp_path):
 
     from transformers import CLIPTokenizer as HFTok
 
-    from rangeclip_tpu.models.clip.tokenizer import (
+    from rangeclip.models.clip.tokenizer import (
         CLIPTokenizer,
         bytes_to_unicode,
     )
@@ -136,7 +136,7 @@ def test_random_image_provider_builds_real_tower():
     """get_image_provider("random") must run the REAL vision tower (full
     ViT cost/code path, random weights) — not the hash stub — so the
     convergence run and weightless timing environments are tower-true."""
-    from rangeclip_tpu.models.clip.provider import (
+    from rangeclip.models.clip.provider import (
         CLIPImageEmbedder,
         get_image_provider,
     )

@@ -9,21 +9,21 @@ import pytest
 import torch
 import torch.nn.functional as TF
 
-from rangeclip_tpu.data.transforms import (
+from rangeclip.data.transforms import (
     depth_transform,
     segmentation_transform,
     lower_median_np,
 )
-from rangeclip_tpu.data.loader import (
+from rangeclip.data.loader import (
     ShardedBatchLoader,
     deterministic_split,
 )
-from rangeclip_tpu.data.labels import (
+from rangeclip.data.labels import (
     build_equivalence_class_map,
     build_equivalence_tensor,
     build_similarity_matrices,
 )
-from rangeclip_tpu.data.synthetic import (
+from rangeclip.data.synthetic import (
     SyntheticDepthSegDataset,
     write_synthetic_dataset,
 )
@@ -146,7 +146,7 @@ def test_shard_indices_wraps_modularly_for_many_shards():
     modularly (DistributedSampler semantics) so every shard gets exactly
     ceil(n/num_shards) indices — a single doubling under-fills and skews
     multi-host step counts."""
-    from rangeclip_tpu.data.loader import _shard_indices
+    from rangeclip.data.loader import _shard_indices
 
     indices = [7, 8, 9]
     num_shards = 8
@@ -164,7 +164,7 @@ def test_similarity_sets_keep_lowest_similarity_members():
     """Hard/medium sets sort ascending by similarity before the [:50] cut
     (reference generate_label_similarity_sets.py:58-59); same sets are
     untruncated (:50-52)."""
-    from rangeclip_tpu.setup_tools.similarity_sets import (
+    from rangeclip.setup_tools.similarity_sets import (
         similarity_sets_from_matrix,
     )
 
@@ -195,8 +195,8 @@ def test_label_structures():
 
 
 def test_synthetic_on_disk_roundtrip(tmp_path):
-    from rangeclip_tpu.data.dataset import ImageDepthTextDataset
-    from rangeclip_tpu.data.labels import (
+    from rangeclip.data.dataset import ImageDepthTextDataset
+    from rangeclip.data.labels import (
         load_candidate_labels,
         load_equivalence_dict,
         load_label_similarity_sets,
@@ -227,9 +227,9 @@ def test_synthetic_on_disk_roundtrip(tmp_path):
 
 
 def test_loader_deterministic_across_worker_counts(tmp_path):
-    from rangeclip_tpu.data.loader import ShardedBatchLoader
-    from rangeclip_tpu.data.synthetic import write_synthetic_dataset
-    from rangeclip_tpu.data.dataset import ImageDepthTextDataset
+    from rangeclip.data.loader import ShardedBatchLoader
+    from rangeclip.data.synthetic import write_synthetic_dataset
+    from rangeclip.data.dataset import ImageDepthTextDataset
 
     data = write_synthetic_dataset(str(tmp_path / "d"), n_samples=10,
                                    shape=(16, 16), num_classes=6)
@@ -263,8 +263,8 @@ def test_synthetic_depth_identifies_label(tmp_path):
     samples (the property convergence runs rely on — the dataset-level
     plane table + floor-anchored median make depth->label decodable on
     held-out scenes; synthetic.py learnability contract)."""
-    from rangeclip_tpu.data.dataset import ImageDepthTextDataset
-    from rangeclip_tpu.data.synthetic import SyntheticDepthSegDataset
+    from rangeclip.data.dataset import ImageDepthTextDataset
+    from rangeclip.data.synthetic import SyntheticDepthSegDataset
 
     C = 64
     ds = SyntheticDepthSegDataset(6, (48, 48), C, seed=3)

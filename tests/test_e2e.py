@@ -8,12 +8,12 @@ import numpy as np
 import pytest
 import jax
 
-from rangeclip_tpu.data.synthetic import write_synthetic_dataset
+from rangeclip.data.synthetic import write_synthetic_dataset
 
 
 @pytest.mark.slow
 def test_trainer_end_to_end(tmp_path):
-    from rangeclip_tpu.training.trainer import TrainerConfig, train_depth_clip_model
+    from rangeclip.training.trainer import TrainerConfig, train_depth_clip_model
 
     data = write_synthetic_dataset(str(tmp_path / "data"), n_samples=12,
                                    shape=(32, 32), num_classes=8)
@@ -39,8 +39,8 @@ def test_trainer_end_to_end(tmp_path):
         max_steps=2,
     )
     # shrink the model for CPU: patch the config the trainer builds
-    import rangeclip_tpu.training.trainer as trainer_mod
-    from rangeclip_tpu.models.depth_unet import DepthUNetConfig
+    import rangeclip.training.trainer as trainer_mod
+    from rangeclip.models.depth_unet import DepthUNetConfig
 
     orig = DepthUNetConfig
 
@@ -62,9 +62,9 @@ def test_trainer_end_to_end(tmp_path):
     # checkpoint written and restorable
     ckpt_dir = str(tmp_path / "ckpt" / "checkpoints")
     assert os.path.isdir(ckpt_dir)
-    from rangeclip_tpu.training.checkpoint import CheckpointManager
-    from rangeclip_tpu.training.optim import make_optimizer
-    from rangeclip_tpu.training.state import create_train_state
+    from rangeclip.training.checkpoint import CheckpointManager
+    from rangeclip.training.optim import make_optimizer
+    from rangeclip.training.state import create_train_state
 
     mgr = CheckpointManager(ckpt_dir)
     assert mgr.latest_step() == 2
@@ -84,7 +84,7 @@ def test_trainer_ddp_parity_smoke(tmp_path):
     """--ddp_parity wiring through the trainer: the shard_map train step
     builds against the trainer's own mesh and runs a real optimizer step
     (semantics proven in test_parallel; this covers the integration)."""
-    from rangeclip_tpu.training.trainer import TrainerConfig, train_depth_clip_model
+    from rangeclip.training.trainer import TrainerConfig, train_depth_clip_model
 
     data = write_synthetic_dataset(str(tmp_path / "data"), n_samples=8,
                                    shape=(32, 32), num_classes=8)
@@ -128,11 +128,11 @@ def test_kill_and_resume_equivalence(tmp_path):
     replays the epoch from its start — a deliberate divergence-fix
     (PARITY.md resume row).
     """
-    from rangeclip_tpu.training.trainer import TrainerConfig, train_depth_clip_model
-    from rangeclip_tpu.training.checkpoint import CheckpointManager
-    from rangeclip_tpu.training.optim import make_optimizer
-    from rangeclip_tpu.training.state import create_train_state
-    from rangeclip_tpu.models.depth_unet import DepthUNetConfig
+    from rangeclip.training.trainer import TrainerConfig, train_depth_clip_model
+    from rangeclip.training.checkpoint import CheckpointManager
+    from rangeclip.training.optim import make_optimizer
+    from rangeclip.training.state import create_train_state
+    from rangeclip.models.depth_unet import DepthUNetConfig
 
     data = write_synthetic_dataset(str(tmp_path / "data"), n_samples=12,
                                    shape=(32, 32), num_classes=8)

@@ -4,7 +4,7 @@ default), RMSE/MAE, inverse-depth iRMSE/iMAE."""
 
 import numpy as np
 
-from rangeclip_tpu.utils.eval_utils import (
+from rangeclip.utils.eval_utils import (
     info_nce_np,
     inv_mean_abs_err,
     inv_root_mean_sq_err,

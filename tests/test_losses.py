@@ -7,15 +7,15 @@ import torch.nn.functional as TF
 import jax
 import jax.numpy as jnp
 
-from rangeclip_tpu.losses.infonce import (
+from rangeclip.losses.infonce import (
     area_image_infonce,
     build_contrast_mask,
     pixel_text_infonce,
     sample_pixels,
 )
-from rangeclip_tpu.losses.pooling import masked_average_pooling, per_item_masked_pooling
-from rangeclip_tpu.losses.smoothness import total_variation_loss
-from rangeclip_tpu.losses.hybrid import HybridLossConfig, compute_hybrid_loss
+from rangeclip.losses.pooling import masked_average_pooling, per_item_masked_pooling
+from rangeclip.losses.smoothness import total_variation_loss
+from rangeclip.losses.hybrid import HybridLossConfig, compute_hybrid_loss
 
 
 def test_pixel_text_infonce_equals_reduced_set_ce():
@@ -131,7 +131,7 @@ def test_weighted_losses_match_torch_reference():
     """weighted_l1/l2 vs a transcription of loss_utils.py:9-69 — incl. the
     reference's non-broadcast denominator ([N,1,H,W] weights against
     [N,3,H,W] losses) and the normalize variants."""
-    from rangeclip_tpu.losses.weighted import weighted_l1_loss, weighted_l2_loss
+    from rangeclip.losses.weighted import weighted_l1_loss, weighted_l2_loss
 
     rng = np.random.default_rng(3)
     src = rng.standard_normal((2, 3, 7, 5)).astype(np.float32)  # NCHW order
@@ -166,7 +166,7 @@ def test_weighted_losses_match_torch_reference():
 def test_total_variation_custom_vjp_matches_autodiff():
     """The fused backward (smoothness.py _tv_bwd) vs XLA autodiff of the
     same forward — including exact ties, where both use JAX's +1 slope."""
-    from rangeclip_tpu.losses.smoothness import _tv_value
+    from rangeclip.losses.smoothness import _tv_value
 
     rng = np.random.default_rng(7)
     for dtype in (jnp.float32, jnp.bfloat16):
@@ -304,10 +304,10 @@ def test_hybrid_loss_composes_and_is_finite():
 
 
 def test_multiplicity_weighting_equals_gathered_sampling():
-    """The TPU path weights all pixels by sampled multiplicity; for the SAME
+    """The train path weights all pixels by sampled multiplicity; for the SAME
     draws this is exactly the mean over the gathered sample list."""
     import jax
-    from rangeclip_tpu.losses.infonce import pixel_text_infonce
+    from rangeclip.losses.infonce import pixel_text_infonce
 
     rng = np.random.default_rng(7)
     B, H, W, D, C = 2, 8, 8, 16, 12
@@ -456,7 +456,7 @@ def test_multinomial_counts_law():
     """Binomial-splitting counts: exact total, correct Multinomial moments,
     zero mass on padding bins (non-power-of-two), slot layout matches the
     flat layout's per-image totals."""
-    from rangeclip_tpu.losses.infonce import (
+    from rangeclip.losses.infonce import (
         multinomial_counts,
         sample_pixel_multiplicities_multinomial,
     )
@@ -495,7 +495,7 @@ def test_multinomial_counts_law():
 
 def test_hybrid_loss_multinomial_sampler_runs():
     """pixel_sampler='multinomial' produces a finite loss on the native
-    path (the TPU train configuration, exercised here on CPU)."""
+    path (a train configuration, exercised here on CPU)."""
     import dataclasses as dc
 
     rng = np.random.default_rng(8)
@@ -526,7 +526,7 @@ def test_histogram_slot_remap_identity():
     """Slot-ordered histogram (index remap before the scatter) is
     bit-identical to transposing the flat histogram afterwards — same key,
     same draws."""
-    from rangeclip_tpu.losses.infonce import sample_pixel_multiplicities
+    from rangeclip.losses.infonce import sample_pixel_multiplicities
 
     rng = np.random.default_rng(11)
     B, H, W, s = 3, 8, 12, 2
@@ -550,8 +550,8 @@ def test_class_balanced_weighting_equalizes_class_mass():
     total weight to the pixel-text CE and sum(valid) is preserved, so the
     loss normalization is unchanged.  Verified against an instrumented
     call that captures the weights the CE actually receives."""
-    import rangeclip_tpu.losses.hybrid as hybrid_mod
-    from rangeclip_tpu.losses.hybrid import HybridLossConfig, compute_hybrid_loss
+    import rangeclip.losses.hybrid as hybrid_mod
+    from rangeclip.losses.hybrid import HybridLossConfig, compute_hybrid_loss
 
     rng = np.random.default_rng(0)
     B, H, W, D, C = 2, 8, 8, 16, 12

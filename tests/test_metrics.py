@@ -7,7 +7,7 @@ from collections import defaultdict
 import numpy as np
 import jax.numpy as jnp
 
-from rangeclip_tpu.evals.metrics import metrics_finalize, metrics_init, metrics_update
+from rangeclip.evals.metrics import metrics_finalize, metrics_init, metrics_update
 
 
 def _oracle(pred_topk, gt, equiv, cmap):

@@ -7,15 +7,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from rangeclip_tpu.losses.hybrid import HybridLossConfig
-from rangeclip_tpu.models.depth_unet import (
+from rangeclip.losses.hybrid import HybridLossConfig
+from rangeclip.models.depth_unet import (
     DepthUNet,
     DepthUNetConfig,
     build_candidate_mask,
 )
-from rangeclip_tpu.training.optim import make_optimizer
-from rangeclip_tpu.training.state import create_train_state
-from rangeclip_tpu.training.train_step import make_train_step
+from rangeclip.training.optim import make_optimizer
+from rangeclip.training.state import create_train_state
+from rangeclip.training.train_step import make_train_step
 
 TINY_MIT = DepthUNetConfig(
     unet_type="mit",

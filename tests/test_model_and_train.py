@@ -4,15 +4,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from rangeclip_tpu.models.depth_unet import (
+from rangeclip.models.depth_unet import (
     DepthUNet,
     DepthUNetConfig,
     build_candidate_mask,
 )
-from rangeclip_tpu.losses.hybrid import HybridLossConfig
-from rangeclip_tpu.training.optim import make_optimizer
-from rangeclip_tpu.training.state import create_train_state
-from rangeclip_tpu.training.train_step import make_train_step
+from rangeclip.losses.hybrid import HybridLossConfig
+from rangeclip.training.optim import make_optimizer
+from rangeclip.training.state import create_train_state
+from rangeclip.training.train_step import make_train_step
 
 TINY = DepthUNetConfig(
     encoder_filters=(8, 16, 16, 16, 32), embedding_dim=32, use_batch_norm=True
@@ -62,7 +62,7 @@ def test_predict_gathered_candidates_bit_match_masked():
     reference's own formulation, model.py:147-161) instead of masking the
     full one; ascending slot order makes tie-breaking identical, so the
     two paths must return bit-identical labels."""
-    from rangeclip_tpu.models.depth_unet import (
+    from rangeclip.models.depth_unet import (
         build_candidate_indices,
         candidate_indices_from_mask,
     )

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from rangeclip_tpu.data.transforms import _resize_nearest_np, lower_median_np
-from rangeclip_tpu.native import (
+from rangeclip.data.transforms import _resize_nearest_np, lower_median_np
+from rangeclip.native import (
     depth_transform_native,
     segmentation_resize_native,
     lib,
@@ -41,7 +41,7 @@ def test_native_png_decode_matches_pil(tmp_path):
     fallback)."""
     from PIL import Image
 
-    from rangeclip_tpu.native import decode_png_native
+    from rangeclip.native import decode_png_native
 
     rng = np.random.default_rng(0)
 

@@ -11,22 +11,22 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from rangeclip_tpu.losses.hybrid import HybridLossConfig
-from rangeclip_tpu.models.depth_unet import (
+from rangeclip.losses.hybrid import HybridLossConfig
+from rangeclip.models.depth_unet import (
     DepthUNet,
     DepthUNetConfig,
     build_candidate_mask,
 )
-from rangeclip_tpu.parallel.mesh import (
+from rangeclip.parallel.mesh import (
     make_mesh,
     replicate,
     shard_batch,
     shard_class_tables,
     shard_state,
 )
-from rangeclip_tpu.training.optim import make_optimizer
-from rangeclip_tpu.training.state import create_train_state
-from rangeclip_tpu.training.train_step import make_train_step
+from rangeclip.training.optim import make_optimizer
+from rangeclip.training.state import create_train_state
+from rangeclip.training.train_step import make_train_step
 
 CFG = DepthUNetConfig(
     encoder_filters=(8, 16, 16, 16, 32), embedding_dim=32, use_batch_norm=True
@@ -59,7 +59,6 @@ def test_class_sharded_predict_matches_replicated():
     def predict(variables, depth, text, cand):
         return model.apply(
             variables, depth, text, cand, 5, method=DepthUNet.predict,
-            scoring="xla",
         )[0]
 
     baseline = np.asarray(predict(variables, depth, text, cand))
@@ -153,11 +152,11 @@ def test_sharded_predict_matches_single_device():
     to single-device predict_folded over the full table: per-shard folded
     scoring + local top-k with values + all_gather('model') + two-key
     (-value, id) sort reproduce the global ascending-id tie-break."""
-    from rangeclip_tpu.models.depth_unet import (
+    from rangeclip.models.depth_unet import (
         DepthUNet, DepthUNetConfig, predict_folded,
     )
-    from rangeclip_tpu.parallel.mesh import make_mesh
-    from rangeclip_tpu.parallel.predict import (
+    from rangeclip.parallel.mesh import make_mesh
+    from rangeclip.parallel.predict import (
         make_sharded_predict, pad_class_table, shard_predict_inputs,
     )
 
@@ -176,7 +175,7 @@ def test_sharded_predict_matches_single_device():
 
     for n_data, n_model in ((2, 2), (4, 1), (1, 4)):
         mesh = make_mesh(n_data=n_data, n_model=n_model)
-        padded, ids = pad_class_table(table, n_model, lane_multiple=False)
+        padded, ids = pad_class_table(table, n_model)
         fn = make_sharded_predict(model, mesh, top_k=K)
         with jax.sharding.set_mesh(mesh):
             xd, td, idsd = shard_predict_inputs(mesh, x, padded, ids)
@@ -191,9 +190,9 @@ def test_sharded_predict_default_path_matches_single_device():
     """The 'default' (unfolded) sharded formulation — the auto dispatch for
     per-shard slot counts past the folded crossover — is bit-identical to
     single-device DepthUNet.predict over the full table."""
-    from rangeclip_tpu.models.depth_unet import DepthUNet, DepthUNetConfig
-    from rangeclip_tpu.parallel.mesh import make_mesh
-    from rangeclip_tpu.parallel.predict import (
+    from rangeclip.models.depth_unet import DepthUNet, DepthUNetConfig
+    from rangeclip.parallel.mesh import make_mesh
+    from rangeclip.parallel.predict import (
         make_sharded_predict, pad_class_table, shard_predict_inputs,
     )
 
@@ -214,7 +213,7 @@ def test_sharded_predict_default_path_matches_single_device():
 
     for n_data, n_model in ((2, 2), (1, 4)):
         mesh = make_mesh(n_data=n_data, n_model=n_model)
-        padded, ids = pad_class_table(table, n_model, lane_multiple=False)
+        padded, ids = pad_class_table(table, n_model)
         fn = make_sharded_predict(model, mesh, top_k=K,
                                   predict_path="default")
         with jax.sharding.set_mesh(mesh):
@@ -235,7 +234,7 @@ def test_ddp_parity_matches_per_shard_simulation():
     merging exactly as documented."""
     import optax
 
-    from rangeclip_tpu.training.train_step import make_microbatch_loss
+    from rangeclip.training.train_step import make_microbatch_loss
 
     rng = np.random.default_rng(3)
     A = 2
@@ -327,7 +326,7 @@ def test_host_local_rows_reassembles_spatially_sharded_arrays():
     """_host_local_rows must reassemble this host's batch rows even when
     non-batch dims are sharded too (the 'spatial' H axis of the 2x2x2
     layout) — a data-sharded-only assumption would drop H halves."""
-    from rangeclip_tpu.evals.validate import _host_local_rows
+    from rangeclip.evals.validate import _host_local_rows
 
     mesh = make_mesh(n_data=2, n_model=2, n_spatial=2)
     want = np.arange(4 * 8 * 6, dtype=np.int32).reshape(4, 8, 6)
@@ -346,15 +345,11 @@ def test_host_local_rows_reassembles_spatially_sharded_arrays():
 
 
 def _run_sharded_step(model_cfg, batch_np, text_np, C_, mesh_dims,
-                      platform, monkeypatch, bf16=False,
-                      contrast_capacity=None, loss_keys=(
+                      loss_keys=(
                           "total_loss", "text_contrastive_loss",
                           "smoothness_loss", "image_contrastive_loss")):
     """One accumulation-window train step on a fresh state over the given
-    mesh, with the kernel dispatch pinned to ``platform`` ('cpu' = XLA
-    formulations, 'interpret' = the PRODUCTION Pallas-kernel code path run
-    through the interpreter).  Returns (loss dict, params-L1 scalar)."""
-    monkeypatch.setenv("RANGECLIP_PLATFORM", platform)
+    mesh.  Returns (loss dict, params-L1 scalar)."""
     model = DepthUNet(model_cfg)
     opt = make_optimizer(1e-4)
     n_data, n_spatial, n_model = mesh_dims
@@ -369,7 +364,7 @@ def _run_sharded_step(model_cfg, batch_np, text_np, C_, mesh_dims,
         jnp.zeros((C_, C_), bool), shard_classes=(n_model > 1),
     )
     step = make_train_step(
-        model, opt, HybridLossConfig(contrast_capacity=contrast_capacity),
+        model, opt, HybridLossConfig(),
         accum_steps=batch_np["depth"].shape[0], mesh=mesh,
     )
     new_state, info = step(
@@ -383,78 +378,14 @@ def _run_sharded_step(model_cfg, batch_np, text_np, C_, mesh_dims,
     return {k: float(info[k]) for k in loss_keys}, pnorm
 
 
-def test_sharded_kernel_path_matches_xla_and_single_device(monkeypatch):
-    """VERDICT r2 #1: the PRODUCTION Pallas-kernel code path executes under
-    the full 2x2x2 sharded mesh (shard_map-partitioned kernel dispatch,
-    parallel/kernel_shard.py) and its sharded loss equals both the sharded
-    XLA-formulation loss and the single-device loss."""
-    rng = np.random.default_rng(11)
-    batch_np = _batch(rng)
-    text_np = rng.standard_normal((C, D)).astype(np.float32)
-
-    ref, pn_ref = _run_sharded_step(CFG, batch_np, text_np, C, (1, 1, 1),
-                                    "cpu", monkeypatch)
-    xla8, pn_x = _run_sharded_step(CFG, batch_np, text_np, C, (2, 2, 2),
-                                   "cpu", monkeypatch)
-    ker8, pn_k = _run_sharded_step(CFG, batch_np, text_np, C, (2, 2, 2),
-                                   "interpret", monkeypatch)
-    for k in ref:
-        np.testing.assert_allclose(xla8[k], ref[k], rtol=2e-4, atol=1e-6,
-                                   err_msg=f"xla sharded {k}")
-        np.testing.assert_allclose(ker8[k], ref[k], rtol=2e-4, atol=1e-6,
-                                   err_msg=f"kernel sharded {k}")
-    np.testing.assert_allclose(pn_x, pn_ref, rtol=1e-4)
-    np.testing.assert_allclose(pn_k, pn_ref, rtol=1e-4)
-
-
-def test_sharded_kernel_path_bf16_packed_contrast(monkeypatch):
-    """The bf16 PERF configuration — packed-contrast CE (gathered member
-    table + lax.cond overflow fallback), row-tile TV, and the
-    layout-absorbing field L2-normalize — partitions over a data x model
-    mesh and matches its own single-device kernel dispatch."""
-    cfg = DepthUNetConfig(
-        encoder_filters=(8, 16, 16, 16, 32), embedding_dim=128,
-        use_batch_norm=True, dtype=jnp.bfloat16,
-    )
-    Bb, Hh, Ww, Cc = 16, 16, 16, 256
-    rng = np.random.default_rng(13)
-    batch_np = {
-        "depth": rng.standard_normal((2, Bb, Hh, Ww, 1)).astype(np.float32),
-        "segmentation": rng.integers(0, 16, size=(2, Bb, Hh, Ww)).astype(
-            np.int32),
-        "object_label": np.ones((2, Bb), np.int32),
-        "image_embeddings": rng.standard_normal((2, Bb, 128)).astype(
-            np.float32),
-        "sample_valid": np.ones((2, Bb), np.float32),
-    }
-    text_np = rng.standard_normal((Cc, 128)).astype(np.float32)
-
-    # the field L2-normalize kernel must be live on the LOCAL shard shape
-    # (B/nd = 8 rows) or this test exercises less than it claims
-    from rangeclip_tpu.ops.pallas.l2_normalize import field_kernel_applicable
-    assert field_kernel_applicable((Bb // 2, Hh // 2, Ww // 2, 128))
-
-    ref, pn_ref = _run_sharded_step(
-        cfg, batch_np, text_np, Cc, (1, 1, 1), "interpret", monkeypatch,
-        contrast_capacity=128)
-    ker, pn_k = _run_sharded_step(
-        cfg, batch_np, text_np, Cc, (2, 1, 2), "interpret", monkeypatch,
-        contrast_capacity=128)
-    for k in ref:
-        np.testing.assert_allclose(ker[k], ref[k], rtol=5e-3, atol=1e-5,
-                                   err_msg=f"bf16 kernel sharded {k}")
-    np.testing.assert_allclose(pn_k, pn_ref, rtol=1e-3)
-
-
 def test_spatial_sharded_predict_matches_single_device():
-    """VERDICT r2 #7: 'spatial' (image-height) sharded predict — the
-    serving answer for resolutions whose activation footprint exceeds one
-    chip — matches single-device DepthUNet.predict bit-for-bit: GSPMD
+    """'spatial' (image-height) sharded predict — the serving answer for
+    resolutions whose activation footprint exceeds one device — matches single-device DepthUNet.predict bit-for-bit: GSPMD
     partitions the UNet forward (conv halo exchanges over 'spatial'),
     scoring + the exact cross-'model' top-k merge run per shard."""
-    from rangeclip_tpu.models.depth_unet import DepthUNet, DepthUNetConfig
-    from rangeclip_tpu.parallel.mesh import make_mesh
-    from rangeclip_tpu.parallel.predict import (
+    from rangeclip.models.depth_unet import DepthUNet, DepthUNetConfig
+    from rangeclip.parallel.mesh import make_mesh
+    from rangeclip.parallel.predict import (
         make_sharded_predict, pad_class_table, shard_predict_inputs,
     )
 
@@ -476,7 +407,7 @@ def test_spatial_sharded_predict_matches_single_device():
     for n_data, n_spatial, n_model in ((2, 2, 2), (1, 2, 1), (1, 4, 2)):
         mesh = make_mesh(n_data=n_data, n_spatial=n_spatial,
                          n_model=n_model)
-        padded, ids = pad_class_table(table, n_model, lane_multiple=False)
+        padded, ids = pad_class_table(table, n_model)
         fn = make_sharded_predict(model, mesh, top_k=K)
         with jax.sharding.set_mesh(mesh):
             xd, td, idsd = shard_predict_inputs(mesh, x, padded, ids)
@@ -494,7 +425,7 @@ def test_spatial_sharded_predict_matches_single_device():
 
 
 def test_model_sharded_unfolded_predict_large_C_matches_single_device():
-    """VERDICT r4 #3 (predict arm): the 'model' axis exercised at the
+    """The 'model' axis (predict arm) exercised at the
     NYUv2-transfer scale where it actually pays — C=2048 >> embedding
     dim, the regime where folding loses (folded_is_profitable is False
     even for the per-shard slice) and the [N, S] score field is the
@@ -503,8 +434,8 @@ def test_model_sharded_unfolded_predict_large_C_matches_single_device():
     bit-identical to single-device DepthUNet.predict over the full
     2048-row table.  Match: model.py:164-165 einsum + SURVEY §5 scaling
     concern (a); BASELINE.json config #4."""
-    from rangeclip_tpu.models.depth_unet import folded_is_profitable
-    from rangeclip_tpu.parallel.predict import (
+    from rangeclip.models.depth_unet import folded_is_profitable
+    from rangeclip.parallel.predict import (
         make_sharded_predict, pad_class_table, shard_predict_inputs,
     )
 
@@ -524,7 +455,7 @@ def test_model_sharded_unfolded_predict_large_C_matches_single_device():
         # crossover, so 'auto' resolves to the unfolded path
         assert not folded_is_profitable(C_big // n_model, 32)
         mesh = make_mesh(n_data=n_data, n_model=n_model)
-        padded, ids = pad_class_table(table, n_model, lane_multiple=False)
+        padded, ids = pad_class_table(table, n_model)
         fn = make_sharded_predict(model, mesh, top_k=K, predict_path="auto")
         with jax.sharding.set_mesh(mesh):
             xd, td, idsd = shard_predict_inputs(mesh, x, padded, ids)
@@ -535,11 +466,10 @@ def test_model_sharded_unfolded_predict_large_C_matches_single_device():
         )
 
 
-def test_model_sharded_packed_ce_train_step_large_C(monkeypatch):
-    """VERDICT r4 #3 (train arm): the bf16 packed-contrast CE train step
-    (gathered member table + lax.cond overflow fallback) under the
-    data x model mesh at C=2048 — the scale where packing is the measured
-    1.34x step win — matches its own single-device kernel dispatch."""
+def test_model_sharded_packed_ce_train_step_large_C():
+    """The bf16 train step under the data x model mesh at C=2048 (class
+    table and [C, C] similarity matrices sharded over 'model') matches the
+    single-device step."""
     cfg = DepthUNetConfig(
         encoder_filters=(8, 16, 16, 16, 32), embedding_dim=128,
         use_batch_norm=True, dtype=jnp.bfloat16,
@@ -549,7 +479,7 @@ def test_model_sharded_packed_ce_train_step_large_C(monkeypatch):
     batch_np = {
         "depth": rng.standard_normal((2, Bb, Hh, Ww, 1)).astype(np.float32),
         "segmentation": rng.integers(0, Cc, size=(2, Bb, Hh, Ww)).astype(
-            np.int32) % 64,  # bounded label diversity, packing never overflows
+            np.int32) % 64,  # bounded label diversity
         "object_label": np.ones((2, Bb), np.int32),
         "image_embeddings": rng.standard_normal((2, Bb, 128)).astype(
             np.float32),
@@ -557,13 +487,9 @@ def test_model_sharded_packed_ce_train_step_large_C(monkeypatch):
     }
     text_np = rng.standard_normal((Cc, 128)).astype(np.float32)
 
-    ref, pn_ref = _run_sharded_step(
-        cfg, batch_np, text_np, Cc, (1, 1, 1), "interpret", monkeypatch,
-        contrast_capacity=128)
-    ker, pn_k = _run_sharded_step(
-        cfg, batch_np, text_np, Cc, (2, 1, 2), "interpret", monkeypatch,
-        contrast_capacity=128)
+    ref, pn_ref = _run_sharded_step(cfg, batch_np, text_np, Cc, (1, 1, 1))
+    ker, pn_k = _run_sharded_step(cfg, batch_np, text_np, Cc, (2, 1, 2))
     for k in ref:
         np.testing.assert_allclose(ker[k], ref[k], rtol=5e-3, atol=1e-5,
-                                   err_msg=f"C=2048 packed-CE sharded {k}")
+                                   err_msg=f"C=2048 sharded {k}")
     np.testing.assert_allclose(pn_k, pn_ref, rtol=1e-3)

@@ -21,8 +21,8 @@ if not os.path.isdir(REF_ROOT):
     pytest.skip("reference repo not mounted", allow_module_level=True)
 sys.path.insert(0, REF_ROOT)
 
-from rangeclip_tpu.models.depth_unet import DepthUNet, DepthUNetConfig
-from rangeclip_tpu.models.torch_interop import convert_reference_checkpoint
+from rangeclip.models.depth_unet import DepthUNet, DepthUNetConfig
+from rangeclip.models.torch_interop import convert_reference_checkpoint
 
 
 @pytest.mark.slow
@@ -87,7 +87,7 @@ def test_depth_unet_matches_reference_fp32():
 def test_checkpoint_export_roundtrips_into_reference():
     """Our params exported to the reference format strict-load into the
     reference's own torch modules and reproduce our pixel field."""
-    from rangeclip_tpu.models.torch_interop import (
+    from rangeclip.models.torch_interop import (
         convert_reference_checkpoint,
         export_reference_checkpoint,
     )

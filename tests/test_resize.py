@@ -7,7 +7,7 @@ import pytest
 import torch
 import torch.nn.functional as TF
 
-from rangeclip_tpu.ops.resize import (
+from rangeclip.ops.resize import (
     resize_nearest,
     resize_bilinear,
     resize_bilinear_align_corners,

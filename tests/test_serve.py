@@ -11,16 +11,16 @@ import numpy as np
 import pytest
 import jax
 
-from rangeclip_tpu.data.synthetic import write_synthetic_dataset
+from rangeclip.data.synthetic import write_synthetic_dataset
 
 
 @pytest.mark.slow
 def test_serve_end_to_end(tmp_path):
-    from rangeclip_tpu.cli import serve as serve_mod
-    from rangeclip_tpu.models.depth_unet import DepthUNetConfig
-    from rangeclip_tpu.training.checkpoint import CheckpointManager
-    from rangeclip_tpu.training.optim import make_optimizer
-    from rangeclip_tpu.training.state import create_train_state
+    from rangeclip.cli import serve as serve_mod
+    from rangeclip.models.depth_unet import DepthUNetConfig
+    from rangeclip.training.checkpoint import CheckpointManager
+    from rangeclip.training.optim import make_optimizer
+    from rangeclip.training.state import create_train_state
 
     data = write_synthetic_dataset(str(tmp_path / "d"), n_samples=4,
                                    shape=(32, 32), num_classes=8)
@@ -33,7 +33,7 @@ def test_serve_end_to_end(tmp_path):
     ckpt_dir = str(tmp_path / "ckpt")
     CheckpointManager(ckpt_dir).save(state)
 
-    from rangeclip_tpu.models import depth_unet as du_mod
+    from rangeclip.models import depth_unet as du_mod
 
     du_orig = du_mod.DepthUNetConfig
 
@@ -109,11 +109,11 @@ def test_serve_end_to_end(tmp_path):
 def test_serve_engine_data_parallel(tmp_path):
     """--data_parallel engine: batch sharded over 'data', table over
     'model' (parallel/predict.py), same submit/response contract."""
-    from rangeclip_tpu.cli import serve as serve_mod
-    from rangeclip_tpu.models.depth_unet import DepthUNetConfig
-    from rangeclip_tpu.training.checkpoint import CheckpointManager
-    from rangeclip_tpu.training.optim import make_optimizer
-    from rangeclip_tpu.training.state import create_train_state
+    from rangeclip.cli import serve as serve_mod
+    from rangeclip.models.depth_unet import DepthUNetConfig
+    from rangeclip.training.checkpoint import CheckpointManager
+    from rangeclip.training.optim import make_optimizer
+    from rangeclip.training.state import create_train_state
 
     data = write_synthetic_dataset(str(tmp_path / "d"), n_samples=4,
                                    shape=(32, 32), num_classes=8)
@@ -126,7 +126,7 @@ def test_serve_engine_data_parallel(tmp_path):
     ckpt_dir = str(tmp_path / "ckpt")
     CheckpointManager(ckpt_dir).save(state)
 
-    from rangeclip_tpu.models import depth_unet as du_mod
+    from rangeclip.models import depth_unet as du_mod
 
     du_orig = du_mod.DepthUNetConfig
 

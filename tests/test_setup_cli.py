@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from rangeclip_tpu.cli import setup as setup_cli
+from rangeclip.cli import setup as setup_cli
 
 
 @pytest.fixture()
@@ -104,7 +104,7 @@ def test_nyu_labeled_mat_layouts(tmp_path):
     scipy path arrives sample-LAST [H, W, 3, N]), and the nyu-labeled CLI
     writes one correctly-oriented patch triplet per labeled object."""
     h5py = pytest.importorskip("h5py")
-    from rangeclip_tpu.setup_tools.nyu import load_nyu_labeled_mat
+    from rangeclip.setup_tools.nyu import load_nyu_labeled_mat
 
     N, H, W = 2, 12, 10
     rng = np.random.default_rng(3)
@@ -214,7 +214,7 @@ def test_pseudo_gt_ultralytics_adapter(tmp_path, monkeypatch):
     assert calls["classes"] == ["chair", "table"]
     assert calls["predicted"] == [str(img)]
 
-    from rangeclip_tpu.setup_tools.pseudo_ground_truth import (
+    from rangeclip.setup_tools.pseudo_ground_truth import (
         read_detection_file,
     )
 

@@ -8,8 +8,8 @@ import jax.numpy as jnp
 
 torch = pytest.importorskip("torch")
 
-from rangeclip_tpu.models.depth_unet import DepthUNet, DepthUNetConfig
-from rangeclip_tpu.models.torch_interop import (
+from rangeclip.models.depth_unet import DepthUNet, DepthUNetConfig
+from rangeclip.models.torch_interop import (
     load_reference_checkpoint,
     save_reference_checkpoint,
 )

@@ -1,7 +1,7 @@
 #!/bin/bash
 # Canonical training launcher (the reference's train_segmentation_model.sh
-# equivalent).  No torchrun: a single process drives every local TPU chip
-# through the mesh; multi-host pods add --distributed and launch one process
+# equivalent).  No torchrun: a single process drives every local GPU
+# through the mesh; multi-host runs add --distributed and launch one process
 # per host.
 
 # Paths
@@ -40,7 +40,7 @@ extra_flags=()
 [ -n "$restore_path_model" ] && extra_flags+=(--restore_path_model "$restore_path_model")
 [ -n "$restore_path_encoder" ] && extra_flags+=(--restore_path_encoder "$restore_path_encoder")
 
-python -m rangeclip_tpu.cli.train \
+python -m rangeclip.cli.train \
     --labeled_metadata_path "$labeled_metadata_path" \
     --labels_path "$labels_path" \
     --equivalence_dict_path "$equivalence_dict_path" \
